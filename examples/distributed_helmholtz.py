@@ -8,7 +8,7 @@ a 1-D mesh (the reference's MPI ranks + per-rank GPUs,
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
       python examples/distributed_helmholtz.py --cpu
 
-  # single real TPU chip (planes path auto-selected):
+  # every GPU of the machine:
   python examples/distributed_helmholtz.py
 """
 import os

@@ -81,129 +81,3 @@ def test_cg_matrix_rcm_reorder_matches_unshuffled():
     x = cg_matrix(Ashuf, b, n_iterations=60)
     x_ref = reference.cg(Ashuf, b, n_iterations=60)
     np.testing.assert_allclose(x, x_ref, rtol=1e-8, atol=1e-10)
-
-
-def test_cg_unstructured_routes_on_accelerator(monkeypatch):
-    """On a non-CPU backend, genuinely unstructured matrices must take
-    the routing-network SpMV through the clcg API -- real via
-    ``route_fallback`` in ``to_device_matrix``, complex via
-    ``routed_pair`` planes -- never the slow ELL gather path."""
-    import jax
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    rng = np.random.default_rng(11)
-    n, per_row = 96, 4
-    rows = np.repeat(np.arange(n), per_row)
-    cols = rng.integers(0, n, n * per_row)
-
-    # real: solution parity with the NumPy oracle
-    Ar = sp.csr_matrix((rng.standard_normal(n * per_row) * 0.1,
-                        (rows, cols)), shape=(n, n))
-    Ar = sp.csr_matrix((Ar + Ar.T) * 0.5 + sp.eye(n) * per_row,
-                       dtype=np.float32)
-    b = rng.standard_normal(n).astype(np.float32)
-    x = cg(n, Ar.nnz, Ar.data, b, Ar.indptr, Ar.indices,
-           n_iterations=40)
-    import scipy.sparse.linalg as spla
-    x_direct = spla.spsolve(Ar.tocsc().astype(np.float64),
-                            b.astype(np.float64))
-    np.testing.assert_allclose(x, x_direct, rtol=2e-3, atol=2e-4)
-
-    # complex-symmetric: COCG history vs the oracle (f32 planes)
-    Ac = sp.csr_matrix(
-        (((rng.standard_normal(n * per_row)
-           + 1j * rng.standard_normal(n * per_row)) * 0.1),
-         (rows, cols)), shape=(n, n))
-    Ac = sp.csr_matrix((Ac + Ac.T) * 0.5
-                       + sp.eye(n) * (per_row + 0.5j)).astype(np.complex64)
-    bc = (rng.standard_normal(n)
-          + 1j * rng.standard_normal(n)).astype(np.complex64)
-    xc, hist = cg(n, Ac.nnz, Ac.data, bc, Ac.indptr, Ac.indices,
-                  n_iterations=30, record_history=True)
-    _, h_ref = reference.cg(Ac.astype(np.complex128),
-                            bc.astype(np.complex128),
-                            n_iterations=30, record_history=True)
-    h = hist.reshape(-1)
-    # early iterations track the f64 oracle tightly; near the sharp
-    # convergence cliff the f32 planes path lags by ~1 iteration, so
-    # assert early-history parity + equally-converged tails
-    pre_cliff = h_ref > 1e-3 * h_ref[0]
-    rel = (np.abs(h - h_ref) / (np.abs(h_ref) + 1e-30))[pre_cliff]
-    assert rel.max() < 5e-3, rel.max()
-    assert h[-1] / h[0] < 1e-6 and h_ref[-1] / h_ref[0] < 1e-6
-
-
-def test_cg_precomputed_routing_tables(tmp_path, monkeypatch):
-    """The offline-preprocessing workflow: tables built once (``tpcg.cli
-    route`` / ``RoutedSpmv.save``) feed ``cg``/``cg_matrix`` via
-    ``routing=`` without any in-line ``build_routing_spmv`` call."""
-    import tpcg.api as api_mod
-    from tpcg.ops.routing import build_routing_spmv
-
-    rng = np.random.default_rng(17)
-    n, per_row = 96, 4
-    rows = np.repeat(np.arange(n), per_row)
-    cols = rng.integers(0, n, n * per_row)
-    Ar = sp.csr_matrix((rng.standard_normal(n * per_row) * 0.1,
-                        (rows, cols)), shape=(n, n))
-    Ar = sp.csr_matrix((Ar + Ar.T) * 0.5 + sp.eye(n) * per_row,
-                       dtype=np.float32)
-    R = build_routing_spmv(Ar)
-    path = str(tmp_path / "routed.npz")
-    R.save(path)
-
-    # any further in-line build is a failure of the hook
-    def _boom(*a, **k):
-        raise AssertionError("routing rebuilt despite routing= operand")
-    monkeypatch.setattr("tpcg.ops.routing.build_routing_spmv", _boom)
-    monkeypatch.setattr("tpcg.api.to_device_matrix",
-                        lambda *a, **k: (_ for _ in ()).throw(
-                            AssertionError("to_device_matrix called")))
-
-    b = rng.standard_normal(n).astype(np.float32)
-    x = api_mod.cg(n, Ar.nnz, Ar.data, b, Ar.indptr, Ar.indices,
-                   n_iterations=40, routing=path)
-    import scipy.sparse.linalg as spla
-    x_direct = spla.spsolve(Ar.tocsc().astype(np.float64),
-                            b.astype(np.float64))
-    np.testing.assert_allclose(x, x_direct, rtol=2e-3, atol=2e-4)
-
-    # the in-memory object works through cg_matrix too (complex RHS ->
-    # f32-planes routed solve)
-    bc = (rng.standard_normal(n)
-          + 1j * rng.standard_normal(n)).astype(np.complex64)
-    xc = api_mod.cg_matrix(Ar, bc, n_iterations=40, routing=R)
-    xc_direct = spla.spsolve(Ar.tocsc().astype(np.float64),
-                             bc.astype(np.complex128))
-    np.testing.assert_allclose(xc, xc_direct, rtol=3e-3, atol=3e-4)
-
-    # size mismatch is a clear error, not a shape crash
-    import pytest
-    with pytest.raises(ValueError, match="routing tables"):
-        api_mod.cg(n - 1, Ar.nnz, Ar.data, b[:-1], Ar.indptr,
-                   Ar.indices, n_iterations=2, routing=R)
-
-
-def test_cg_matrix_real_routed_complex_rhs(monkeypatch):
-    """Real unstructured matrix + complex RHS on an accelerator: the
-    DeviceRouted operand must wrap into a real-only PairOperator (two
-    independent real routed SpMVs), not crash in make_pair_operator."""
-    import jax
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    rng = np.random.default_rng(13)
-    n, per_row = 80, 4
-    rows = np.repeat(np.arange(n), per_row)
-    cols = rng.integers(0, n, n * per_row)
-    Ar = sp.csr_matrix((rng.standard_normal(n * per_row) * 0.1,
-                        (rows, cols)), shape=(n, n))
-    Ar = sp.csr_matrix((Ar + Ar.T) * 0.5 + sp.eye(n) * per_row,
-                       dtype=np.float32)
-    bc = (rng.standard_normal(n)
-          + 1j * rng.standard_normal(n)).astype(np.complex64)
-    x = cg_matrix(Ar, bc, n_iterations=40)
-    import scipy.sparse.linalg as spla
-    x_direct = spla.spsolve(Ar.tocsc().astype(np.float64),
-                            bc.astype(np.complex128))
-    np.testing.assert_allclose(x, x_direct, rtol=3e-3, atol=3e-4)

@@ -1,19 +1,16 @@
-"""Automatic kernel selection (``tpcg.ops.auto``).
+"""Stencil CG planning (``tpcg.ops.auto``).
 
-Each execution path must produce the same residual history as the XLA
-oracle path; the planner must route problems by size/structure/batch
-the way the module documents.
+The planner fixes the complex representation (native complex unless
+``path`` asks for planes) and the batch contract of
+``StencilCGPlan.solve``.  Numerical parity of every problem class
+against the float64 oracle lives in the ``tests/test_paths_*.py`` files.
 """
+import jax
 import numpy as np
 import pytest
 
-import tpcg.ops.auto as auto
 from tpcg.ops.auto import plan_stencil_cg, stencil_cg
 from tpcg.problems import helm_fe, helm_fe_var, plane_wave_rhs
-
-
-def _rel(a, b):
-    return np.max(np.abs(a - b) / (np.abs(b) + 1e-30))
 
 
 @pytest.fixture
@@ -24,210 +21,28 @@ def prob():
 
 def test_path_selection(prob, monkeypatch):
     A, b, N = prob
-    # CPU backend, no interpret -> always xla
+    # CPU backend: native complex
     assert plan_stencil_cg(A, 5).path == "xla"
-    # "accelerator" (interpret stands in): fits VMEM -> coefficient
-    # kernel (measured faster than the const-tap variant at every
-    # VMEM-resident size)
-    assert plan_stencil_cg(A, 5, interpret=True).path == "vmem-coef"
-    # larger RHS batches at VMEM sizes go to the chunked XLA planes
-    # path (BLOCK_RHS.md: it wins from b~4 and has no b=32 cliff)
-    assert plan_stencil_cg(A, 5, nb=2, interpret=True).path == "vmem-coef"
-    assert plan_stencil_cg(A, 5, nb=4, interpret=True).path == "xla"
-    # too big for VMEM + const edges -> stream (any batch; multi-RHS
-    # dispatches the batched (G, nb)-grid kernels)
-    monkeypatch.setattr(auto, "_VMEM_NODES", 16)
-    assert plan_stencil_cg(A, 5, nb=1, interpret=True).path == "stream"
-    assert plan_stencil_cg(A, 5, nb=4, interpret=True).path == "stream"
-    # variable coefficients, fits VMEM -> vmem-coef
-    monkeypatch.setattr(auto, "_VMEM_NODES", 512 * 512)
+    # a GPU backend takes the same default (native complex64 was faster
+    # than float32 planes on an H100)
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    want = "xla"
+    assert plan_stencil_cg(A, 5).path == want
     rng = np.random.default_rng(0)
     C = 1.0 + 0.5 * rng.random((N - 1, N - 1))
     Av = helm_fe_var(N, 9.0, C, rho=0.1)
-    assert plan_stencil_cg(Av, 5, interpret=True).path == "vmem-coef"
-    # variable coefficients, too big -> coefficient streaming
-    monkeypatch.setattr(auto, "_VMEM_NODES", 16)
-    assert plan_stencil_cg(Av, 5, interpret=True).path == "stream-coef"
-    assert plan_stencil_cg(Av, 5, nb=4, interpret=True).path == "stream-coef"
-
-
-def test_v3_config_fit_rules():
-    """The merged v3 kernel's keep_r/Bv choice encodes the measured
-    VMEM fits (benchmarks/exp_stream3b/c.py): keep_r + small Bv at
-    N=2048; nothing at grids whose q+dnew scratch alone overflows."""
-    from tpcg.ops.auto import _v3_config
-    assert _v3_config(2048, 2048, coef=False) == (True, 64)
-    assert _v3_config(2048, 2048, coef=True) == (True, 32)
-    # q+dnew alone (268 MB at 4096^2) cannot fit -> v2 fallback
-    assert _v3_config(4096, 4096, coef=False) is None
-    assert _v3_config(4096, 4096, coef=True) is None
-    # narrow band where only the 2-plane scratch fits: keep_r off,
-    # coef forced to Bv=64 (default Bv=128 overflows next to scratch)
-    assert _v3_config(2176, 2048, coef=False) == (False, None)
-    assert _v3_config(2176, 2048, coef=True) == (False, 64)
-
-
-def test_v4_config_fit_rules():
-    """The resident v4 kernel's keep_q/Bv choice encodes the measured
-    VMEM fits (benchmarks/exp_stream4.py): all of x/r/d/q resident up
-    to ~1536^2, x/r/d + recomputed q at 2048^2 (const only, Bv capped
-    at 64 -- Bv=128's pipeline buffers overflow), nothing at 4096^2."""
-    from tpcg.ops.auto import _v4_config
-    assert _v4_config(1024, 1024, coef=False) == (True, 512)
-    assert _v4_config(1024, 1024, coef=True) == (True, 128)
-    # keep_q scratch grows with the grid, so the window budget shrinks
-    # the viable block size (Bv=256 fails to compile at 1536)
-    assert _v4_config(1536, 1536, coef=False) == (True, 128)
-    assert _v4_config(1536, 1536, coef=True) == (True, 64)
-    assert _v4_config(2048, 2048, coef=False) == (False, 64)
-    # coef cannot recompute q without re-streaming coefficients
-    assert _v4_config(2048, 2048, coef=True) is None
-    assert _v4_config(4096, 4096, coef=False) is None
-    # odd heights fall back to _pick_block_rows divisors
-    kq, bv = _v4_config(1040, 1024, coef=False)
-    assert kq and 1040 % bv == 0 and bv <= 128
-
-
-def test_v5_config_fit_rules():
-    """The panel-round-trip v5 kernel covers const grids beyond the v4
-    budget: tier A (direction field resident) to ~3600^2, tier B (full
-    round-trip) beyond; 128-aligned lane widths only."""
-    from tpcg.ops.auto import _v5_config
-    # inside the v4 envelope the planner never asks, but the config is
-    # well-defined: d (33.6 MB) easily resident
-    assert _v5_config(2048, 2048) == (True, 128)
-    # the first beyond-v4 aligned sizes: tier A (Bv=128 measured 871
-    # GFLOPS at N=2560; at N=3072 the Bv=128 windows overflow next to
-    # the 75 MB resident field -- Bv=64 measured 827)
-    assert _v5_config(2304, 2304) == (True, 128)
-    assert _v5_config(2560, 2560) == (True, 128)
-    assert _v5_config(3072, 3072) == (True, 64)
-    # one complex field no longer fits: tier B (Bv=64 by MEASUREMENT:
-    # 770.7 GFLOPS vs 528.5 at Bv=128 on N=4096)
-    assert _v5_config(3584, 3584) == (False, 64)
-    assert _v5_config(4096, 4096) == (False, 64)
-    assert _v5_config(8192, 8192) == (False, 64)
-    # DMA lane alignment: unaligned widths are not v5-eligible
-    assert _v5_config(2896, 2896) is None
-
-
-def test_v5_real_config_fit_rules():
-    """Real v5 covers const-tap grids beyond the real v4 budget
-    (nodes > ~8.8M): tier A to ~5000^2, tier B beyond, aligned only."""
-    from tpcg.ops.auto import _v5_real_config
-    assert _v5_real_config(3072, 3072) == (True, 128)
-    assert _v5_real_config(4096, 4096) == (True, 128)
-    assert _v5_real_config(5120, 5120) == (False, 64)
-    assert _v5_real_config(2896, 2896) is None
-
-
-def test_v4_sym_config_fit_rules():
-    from tpcg.ops.auto import _v4_sym_config
-    assert _v4_sym_config(1024, 1024) == (True, 256)
-    assert _v4_sym_config(1536, 1536) == (True, 64)
-    # recompute tier exists for sym (halved planes streamed twice)
-    assert _v4_sym_config(2048, 2048) == (False, 32)
-    assert _v4_sym_config(4096, 4096) is None
-
-
-def test_v4_real_config_fit_rules():
-    from tpcg.ops.auto import _v4_real_config
-    assert _v4_real_config(1024, 1024) == (True, 512)
-    # Bv=512 windows overflow next to the 67 MB keep_q scratch at 2048
-    assert _v4_real_config(2048, 2048) == (True, 256)
-    assert _v4_real_config(2896, 2896) == (False, 16)
-    assert _v4_real_config(4096, 4096) is None
-
-
-def test_solve_planes_device_surface(monkeypatch):
-    """plan.solve_planes: device-resident single-RHS surface for the
-    stream paths (no numpy round-trip), matching plan.solve exactly;
-    paths without a planes kernel raise."""
-    import jax.numpy as jnp
-    from tpcg.problems import helm_fe, plane_wave_rhs
-    N, iters, k = 64, 12, 9.0
-    A = helm_fe(N, k, eps=k)
-    b = plane_wave_rhs(N, k)
-    monkeypatch.setattr(auto, "_VMEM_NODES", 16)
-    plan = plan_stencil_cg(A, iters, interpret=True)
-    assert plan.path == "stream"
-    x_np, h_np = plan.solve(b)
-    bp = jnp.asarray(np.stack([b.real, b.imag]).astype(np.float32))
-    xp, hp = plan.solve_planes(bp)
-    xc = np.asarray(xp[0] + 1j * xp[1]).astype(np.complex64)
-    np.testing.assert_array_equal(xc, x_np)
-    np.testing.assert_array_equal(np.asarray(hp), h_np)
-    # xla path has no planes surface
-    plan2 = plan_stencil_cg(A, iters, path="xla")
-    with pytest.raises(ValueError, match="planes"):
-        plan2.solve_planes(bp)
-
-
-def test_stream_real_path_and_routing(monkeypatch):
+    assert plan_stencil_cg(Av, 5).path == want
+    # real stencils never take planes
     from tpcg.problems.poisson import poisson
-    N, iters = 48, 20
-    A = poisson(N, dtype=np.float64)
-    rng = np.random.default_rng(4)
-    b = rng.standard_normal((N, N)).astype(np.float32)
-    # real problems stay on xla below the size threshold...
-    assert plan_stencil_cg(A, 5, interpret=True).path == "xla"
-    # ...and stream once past it (single RHS only)
-    monkeypatch.setattr(auto, "_REAL_STREAM_NODES", 16)
-    assert plan_stencil_cg(A, 5, interpret=True).path == "stream-real"
-    assert plan_stencil_cg(A, 5, nb=4, interpret=True).path == "stream-real"
-    x_ref, h_ref = stencil_cg(A, b, n_iterations=iters, path="xla")
-    x, h = stencil_cg(A, b, n_iterations=iters, path="stream-real",
-                      interpret=True)
-    assert _rel(h, h_ref) < 1e-4
-
-
-def test_stream_coef_path_matches_oracle():
-    N, iters = 32, 20
-    rng = np.random.default_rng(3)
-    C = 1.0 + 0.5 * rng.random((N - 1, N - 1))
-    Av = helm_fe_var(N, 9.0, C, rho=0.1)
-    b = plane_wave_rhs(N, 9.0)
-    x_ref, h_ref = stencil_cg(Av, b, n_iterations=iters, path="xla")
-    x, h = stencil_cg(Av, b, n_iterations=iters, path="stream-coef",
-                      interpret=True)
-    assert _rel(h, h_ref) < 5e-3
-
-
-@pytest.mark.parametrize("path", ["vmem-const", "vmem-coef", "stream"])
-def test_paths_match_xla_oracle(prob, path):
-    A, b, N = prob
-    iters = 20
-    x_ref, h_ref = stencil_cg(A, b, n_iterations=iters, path="xla")
-    x, h = stencil_cg(A, b, n_iterations=iters, path=path, interpret=True)
-    assert x.shape == (N, N) and h.shape == (iters + 1,)
-    assert _rel(h, h_ref) < 5e-3, (path, _rel(h, h_ref))
-    assert np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref) < 5e-2
-
-
-def test_stream_path_multi_rhs(prob):
-    """Multi-RHS through the stream path = the batched (G, nb) kernel."""
-    A, b, N = prob
-    iters = 12
-    B = np.stack([b, b * (1 - 0.4j)])
-    x_ref, h_ref = stencil_cg(A, B, n_iterations=iters, path="xla")
-    x, h = stencil_cg(A, B, n_iterations=iters, path="stream",
-                      interpret=True)
-    assert x.shape == (2, N, N) and h.shape == (iters + 1, 2)
-    assert _rel(h, h_ref) < 5e-3
-
-
-def test_batched_and_x0(prob):
-    A, b, N = prob
-    iters = 15
-    rng = np.random.default_rng(1)
-    B = np.stack([b, b * (1 + 0.3j)])
-    X0 = (rng.standard_normal((2, N, N))
-          + 1j * rng.standard_normal((2, N, N))).astype(np.complex64) * 0.1
-    x_ref, h_ref = stencil_cg(A, B, X0, n_iterations=iters, path="xla")
-    x, h = stencil_cg(A, B, X0, n_iterations=iters, path="vmem-const",
-                      interpret=True)
-    assert x.shape == (2, N, N) and h.shape == (iters + 1, 2)
-    assert _rel(h, h_ref) < 5e-3
+    assert plan_stencil_cg(poisson(16), 5).path == "xla"
+    # explicit representation, and the removed tiers are refused
+    assert plan_stencil_cg(A, 5, path="xla-planes").path == "xla-planes"
+    assert plan_stencil_cg(A, 5, path="xla").path == "xla"
+    for gone in ("vmem-coef", "stream", "stream-real"):
+        with pytest.raises(ValueError, match="unknown path"):
+            plan_stencil_cg(A, 5, path=gone)
+    with pytest.raises(ValueError, match="complex stencil"):
+        plan_stencil_cg(poisson(16), 5, path="xla-planes")
 
 
 def test_explicit_batch_axis_preserved(prob):
@@ -251,58 +66,3 @@ def test_flat_batched_rhs_not_squeezed(prob):
         x, h = stencil_cg(A, form, n_iterations=8, path="xla")
         assert x.shape == (3, N, N) and h.shape == (9, 3)
         np.testing.assert_allclose(x, x_ref, rtol=1e-6)
-
-
-def test_prime_grid_pads_to_stream(monkeypatch):
-    """A grid height with no viable row-block divisor used to fall back
-    to XLA; beyond VMEM the planner now zero-row-pads to the next
-    128-multiple and streams (pads stay exactly zero, so semantics are
-    unchanged -- gated against the XLA oracle and the batch/squeeze
-    contract)."""
-    monkeypatch.setattr(auto, "_VMEM_NODES", 16)
-    N, iters = 67, 20                    # 67 prime
-    A = helm_fe(N, 9.0, eps=9.0)
-    b = plane_wave_rhs(N, 9.0)
-    plan = plan_stencil_cg(A, iters, interpret=True)
-    assert plan.path.startswith("pad->stream"), plan.path
-    x, h = plan.solve(b)
-    assert x.shape == (N, N) and h.shape == (iters + 1,)
-    x_ref, h_ref = stencil_cg(A, b, n_iterations=iters, path="xla")
-    assert _rel(h, h_ref) < 5e-3
-    # batch axis + x0 preserved through the pad wrapper
-    B2 = np.stack([b, 2 * b])
-    x2, h2 = plan.solve(B2, x0=0.1 * B2)
-    assert x2.shape == (2, N, N) and h2.shape == (iters + 1, 2)
-    # on CPU (no accelerator paths) prime grids still go to xla
-    assert plan_stencil_cg(A, 5).path == "xla"
-
-
-def test_forced_xla_path_never_rerouted(monkeypatch):
-    """path='xla' is a documented force (the tests' parity oracle); the
-    pad->stream re-route must only apply to auto-selected plans
-    (regression: a forced-xla plan on an awkward-height grid beyond
-    VMEM silently became a stream plan)."""
-    monkeypatch.setattr(auto, "_VMEM_NODES", 16)
-    A = helm_fe(67, 9.0, eps=9.0)
-    plan = plan_stencil_cg(A, 5, path="xla", interpret=True)
-    assert plan.path == "xla"
-
-
-def test_pad_wrapper_solve_planes_real(monkeypatch):
-    """The pad wrapper's solve_planes must handle rank-2 (Nv, Nh)
-    planes (stream-real), not only rank-3 complex planes (regression:
-    a hardcoded 3-axis pad width raised ValueError)."""
-    import jax.numpy as jnp
-    from tpcg.problems.poisson import poisson
-    monkeypatch.setattr(auto, "_REAL_STREAM_NODES", 16)
-    N, iters = 67, 15                    # 67 prime -> row pad
-    A = poisson(N, dtype=np.float64)
-    rng = np.random.default_rng(7)
-    b = rng.standard_normal((N, N)).astype(np.float32)
-    plan = plan_stencil_cg(A, iters, interpret=True)
-    assert plan.path.startswith("pad->stream"), plan.path
-    x_np, h_np = plan.solve(b)
-    xp, hp = plan.solve_planes(jnp.asarray(b))
-    assert xp.shape == (N, N)
-    np.testing.assert_array_equal(np.asarray(xp), np.asarray(x_np))
-    np.testing.assert_array_equal(np.asarray(hp), np.asarray(h_np))

@@ -105,7 +105,7 @@ def test_cg_solve_jacobi_preconditioner():
 
 
 def test_float32_path_close_to_oracle():
-    """f32 (TPU dtype) should track the f64 oracle to single precision."""
+    """f32 should track the f64 oracle to single precision."""
     A = spd_matrix(48, seed=14)
     M = to_device_matrix(A.astype(np.float32))
     b = np.random.default_rng(15).standard_normal(48).astype(np.float32)

@@ -2,7 +2,6 @@
 scripts' ``__main__`` tails, including the UseCG=6 mesh fan-out."""
 import os
 
-import numpy as np
 import scipy.io
 import scipy.sparse as sp
 
@@ -49,25 +48,19 @@ def test_helmholtz_cli_multihost_flag(tmp_path, capsys, monkeypatch):
     assert os.path.exists(tmp_path / "output_2_6_40.txt")
 
 
-def test_route_cli_roundtrip(tmp_path):
-    """route subcommand: build + save tables; RoutedSpmv.load gives the
-    same operator."""
-    import scipy.io
-    import scipy.sparse as sp
-    from tpcg.cli import main
-    from tpcg.ops.routing import RoutedSpmv
+def test_helmholtz_cli_exit_code_when_a_mode_raises(tmp_path, capsys,
+                                                    monkeypatch):
+    """A variant that raises is recorded as 0 in the output file, like the
+    reference (:3715-3718), but the command exits non-zero."""
+    import sys
+    hs = sys.modules["tpcg.parallel.hsolver"]
 
-    rng = np.random.default_rng(17)
-    n = 120
-    rows = np.repeat(np.arange(n), 3)
-    cols = rng.integers(0, n, n * 3)
-    A = sp.coo_matrix((rng.standard_normal(n * 3), (rows, cols)),
-                      shape=(n, n)).tocsr()
-    mtx = tmp_path / "r.mtx"
-    out = tmp_path / "r.npz"
-    scipy.io.mmwrite(str(mtx), A)
-    assert main(["route", str(mtx), str(out)]) == 0
-    R = RoutedSpmv.load(str(out))
-    x = rng.standard_normal(n)
-    np.testing.assert_allclose(R.matvec_numpy(x), A @ x, rtol=1e-5,
-                               atol=1e-6)
+    def boom(*a, **k):
+        raise RuntimeError("subdomain solve failed")
+    monkeypatch.setattr(hs, "hsolver", boom)
+    monkeypatch.chdir(tmp_path)
+    assert main(["helmholtz", "2", "6", "0,2", "40"]) == 1
+    assert "subdomain solve failed" in capsys.readouterr().out
+    text = open(tmp_path / "output_2_6_40.txt").read()
+    assert "0.00" in text and "End of Array" in text
+

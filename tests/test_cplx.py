@@ -1,5 +1,6 @@
-"""Two-plane complex path == native complex path (the TPU representation
-must be numerically identical to the complex64 reference computation)."""
+"""Two-plane complex path == native complex path (the planes
+representation must be numerically identical to the complex64 reference
+computation)."""
 import numpy as np
 
 import jax.numpy as jnp
@@ -84,7 +85,7 @@ def test_block_cg_planes_f32():
 
 
 def test_block_cg_planes_chunked_matches_monolithic():
-    """RHS-chunked planes CG (the b>32 VMEM-spill fix) must reproduce
+    """RHS-chunked planes CG (balanced chunks of at most 32) must reproduce
     the single-program solve per RHS, including a padded last chunk."""
     import jax.numpy as jnp
     from tpcg.ops.cplx import (block_cg_planes, block_cg_planes_chunked,

@@ -1,9 +1,9 @@
 """Two-plane distributed path == native-complex distributed path.
 
-The TPU runs the ORAS/FGMRES stack on float32 planes; these tests pin the
-plane implementations of the halo exchange, distributed matvec,
-reductions, Schwarz preconditioner and full hsolver to the complex ones
-on CPU (in float64 planes for tight comparison where possible).
+The ORAS/FGMRES stack can run on float planes (``use_planes``); these
+tests pin the plane implementations of the halo exchange, distributed
+matvec, reductions, Schwarz preconditioner and full hsolver to the complex
+ones on CPU (in float64 planes for tight comparison where possible).
 """
 import numpy as np
 
@@ -114,46 +114,10 @@ def test_hsolver_planes_block_cg():
     assert res.converged
 
 
-def test_schwarz_fused_kernel_matches_xla():
-    """kernel='fused' routes the batched subdomain CG through the
-    Pallas VMEM kernel (interpret on CPU); the preconditioner it
-    produces must match the XLA planes path (same COCG recurrences,
-    f32-drift-level differences only)."""
-    decomp, _, x = setup()
-    part = decomp.part
-    P = local_rect(part.N, k=6.0, eps=6.0, eta=6.0,
-                   Nhoriz=part.sdsz, Nvert=part.sdsz)
-    zp = planes64(x).astype(jnp.float32)
-    px = SchwarzPrec(decomp, P, cg_iterations=120, planes=True)
-    pf = SchwarzPrec(decomp, P, cg_iterations=120, planes=True,
-                     kernel="fused")
-    want = np.asarray(px(zp))
-    got = np.asarray(pf(zp))
-    scale = np.abs(want).max()
-    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * scale)
-
-
-def test_hsolver_prec_kernel_fused_e2e():
-    """The full solve with the fused subdomain kernel converges with
-    the same FGMRES iteration count as the XLA path -- the
-    preconditioner quality is identical (reference UseCG variants
-    showed the same invariance, NOTES_R3 iteration table)."""
-    base = dict(k=6.0, M_subd=2, W_subd=8, use_cg=2, cg_max_it=300,
-                tol=1e-6, restart=60, dtype="complex64",
-                use_planes=True, verbose=0)
-    res_x = hsolver(HelmholtzConfig(**base))
-    res_f = hsolver(HelmholtzConfig(prec_kernel="fused", **base))
-    assert res_f.converged
-    assert res_f.iterations == res_x.iterations
-    xf, xx = np.asarray(res_f.x), np.asarray(res_x.x)
-    assert np.abs(xf - xx).max() / np.abs(xx).max() < 1e-3
-
-
 def test_wgmres_planes_matches_complex():
-    """Component #29's TPU configuration: ``weighted_gmres`` driven with
-    two-plane vectors + the planes reductions/lincomb (as ``hsolver``
-    wires it for the TPU) must track the native-complex run."""
-    from tpcg.parallel.fgmres import planes_lincomb
+    """Component #29 on planes: ``weighted_gmres`` driven with two-plane
+    vectors (as ``hsolver`` wires it with ``use_planes``) must track the
+    native-complex run."""
     from tpcg.parallel.wgmres import weighted_gmres
 
     decomp, S, _ = setup()
@@ -162,7 +126,7 @@ def test_wgmres_planes_matches_complex():
 
     mv_c = lambda x: decomp.ax_op(jnp.asarray(coef), S.offsets, x)
     res_c = weighted_gmres(mv_c, jnp.asarray(b), tol=1e-6, maxiter=400,
-                           norm=decomp.norm, wdot=decomp.wdot)
+                           weights=decomp.unique_weights())
 
     coef3 = jnp.asarray(np.stack([coef.real, coef.imag,
                                   coef.real + coef.imag])
@@ -170,9 +134,7 @@ def test_wgmres_planes_matches_complex():
     bp = planes64(b)
     mv_p = lambda x: decomp.ax_op_planes(coef3, S.offsets, x)
     res_p = weighted_gmres(mv_p, bp, tol=1e-6, maxiter=400,
-                           norm=decomp.norm_planes,
-                           wdot=decomp.wdot_planes,
-                           lincomb=planes_lincomb)
+                           weights=decomp.unique_weights(), planes=True)
 
     assert res_c.converged and res_p.converged
     assert res_p.iterations == res_c.iterations
@@ -200,7 +162,7 @@ def test_hsolver_wgmres_planes_e2e():
 
 
 def test_hsolver_var_coeff_planes():
-    """Variable-coefficient solve in two-plane mode (the TPU default):
+    """Variable-coefficient solve in two-plane mode:
     the per-subdomain (coef3, offsets) preconditioner pair must jit with
     the offsets STATIC (regression: passing the tuple through the jit
     argument pytree turned the int offsets into tracers and crashed

@@ -116,7 +116,7 @@ def test_wgmres_oras_converges():
     prec = SchwarzPrec(decomp, P, method="dense_lu")
     res = weighted_gmres(lambda x: decomp.ax_op(coef, S.offsets, x), b,
                          M=prec, tol=1e-6, maxiter=100,
-                         norm=decomp.norm, wdot=decomp.wdot)
+                         weights=decomp.unique_weights())
     assert res.converged
     x_glob = decomp.to_global(np.asarray(res.x), check=True, tol=1e-4)
     A = S.to_scipy()

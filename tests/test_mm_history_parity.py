@@ -9,8 +9,8 @@ pipeline -- ``.mtx`` file -> ``tpcg.io.load_matrix_market`` ->
 ``tpcg.api.cg`` with ``record_history`` -- is pinned against
 ``tpcg.reference.cg`` at rtol <= 1e-10 over 100+ iterations, in float64
 (x64 is enabled by conftest; the 1e-10 target is only meaningful in
-double precision -- the f32 TPU parity gates live in ``bench.py`` and
-``tests/test_stream_cg.py``).
+double precision -- the f32 parity gates live in ``bench.py``,
+``chip_smoke.py`` and ``tests/solver_oracle.py``).
 """
 import numpy as np
 import scipy.io

@@ -1,6 +1,6 @@
 """Multi-device sharding: the distributed operators must produce identical
 results when the subdomain grid is sharded over a device mesh (the stand-in
-for multi-chip TPU; 8 virtual CPU devices from conftest)."""
+for multi-device runs; 8 virtual CPU devices from conftest)."""
 import numpy as np
 import pytest
 
@@ -86,7 +86,7 @@ def _collective_payloads(txt):
 
 def test_sharded_comm_lowers_to_collective_permute():
     """The docstring claim of ``tpcg/parallel/halo.py`` -- subdomain-grid
-    shifts lower to neighbour ``collective-permute`` (the TPU twin of
+    shifts lower to neighbour ``collective-permute`` (the device twin of
     ``OL_update``'s 8-direction Isend/Irecv,
     ``p_h-PY_C-CL-multi-GPU.py:2183-2497``), never to an all-gather of the
     (M, M, S, S) state -- checked against the compiled HLO on the 8-device
@@ -176,8 +176,37 @@ def test_hsolver_sharded_matches_unsharded():
                                rtol=1e-8, atol=1e-8)
 
 
+@pytest.mark.parametrize("planes", [False, True], ids=["native", "planes"])
+def test_hsolver_sharded_wgmres_matches_unsharded(planes):
+    """wGMRES lifts its recurrence to the host; on a single-process mesh
+    its device vectors go back with the mesh's sharding."""
+    cfg = HelmholtzConfig(k=5.0, M_subd=8, W_subd=4, OL=1, use_cg=0,
+                          tol=1e-6, restart=100, gmres_ver="wgmres",
+                          dtype="complex128", use_planes=planes, verbose=0)
+    res_single = hsolver(cfg)
+    mesh = make_mesh()
+    res_sharded = hsolver(cfg, mesh=mesh)
+    assert res_sharded.converged
+    assert res_sharded.iterations == res_single.iterations
+    if not planes:       # planes solutions come back as host complex
+        assert res_sharded.x.sharding.device_set == set(mesh.devices.flat)
+    np.testing.assert_allclose(np.asarray(res_sharded.x),
+                               np.asarray(res_single.x),
+                               rtol=1e-8, atol=1e-8)
+
+
+def test_hsolver_wgmres_refuses_multi_process_mesh():
+    from types import SimpleNamespace
+    mesh = SimpleNamespace(devices=np.array(
+        [SimpleNamespace(process_index=i) for i in range(2)]))
+    cfg = HelmholtzConfig(k=5.0, M_subd=2, W_subd=4, OL=1,
+                          gmres_ver="wgmres", verbose=0)
+    with pytest.raises(ValueError, match="multiple processes"):
+        hsolver(cfg, mesh=mesh)
+
+
 def test_hsolver_sharded_planes_matches_unsharded():
-    """The TPU configuration (two-plane f32) sharded over 8 devices."""
+    """The two-plane f32 configuration sharded over 8 devices."""
     cfg = HelmholtzConfig(k=5.0, M_subd=8, W_subd=4, OL=1, use_cg=2,
                           cg_max_it=150, tol=1e-6, restart=60,
                           dtype="complex64", use_planes=True, verbose=0)

@@ -32,9 +32,17 @@ def test_flops_accounting():
     # report Table II, complex helm_fem numbers
     fl = cg_iteration_flops(16384, 113666, is_complex=True)
     assert fl == 4 * (2 * 113666 + 10 * 16384)
-    frac = roofline_fraction(200.0, 16384, 113666, is_complex=True)
-    assert 0.0 < frac  # fused kernel can exceed the streaming roofline
-    assert roofline_fraction(1e-3, 16384, 113666, True) < 0.01
+    kind = "NVIDIA H100 80GB HBM3"
+    frac = roofline_fraction(200.0, 16384, 113666, is_complex=True,
+                             device_kind=kind)
+    # 3.35 TB/s data-sheet peak: fl/by GFLOPS-per-GB/s times the peak
+    by = 4 * (3 * 113666 + 6 * 16384 * 2)
+    np.testing.assert_allclose(frac, 200.0 / (3350.0 * fl / by))
+    assert roofline_fraction(1e-3, 16384, 113666, True, kind) < 0.01
+    # a device kind without a recorded peak is an error, not a default
+    import pytest
+    with pytest.raises(KeyError, match="no HBM peak"):
+        roofline_fraction(1.0, 16384, 113666, True, "unknown card")
 
 
 def test_plots(tmp_path):

@@ -1,9 +1,9 @@
-"""tpcg -- TPU-native block conjugate-gradient solver framework.
+"""tpcg -- block conjugate-gradient solver framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
+A from-scratch JAX/XLA rebuild of the capabilities of the
 ``conjugate-gradient-pyopencl`` reference (GPU block-CG over CSR + 2-D
-Helmholtz FE problem suite + MPI domain-decomposition ORAS/FGMRES solver),
-redesigned TPU-first.  See SURVEY.md for the layer map and parity table.
+Helmholtz FE problem suite + MPI domain-decomposition ORAS/FGMRES solver).
+See SURVEY.md for the layer map and parity table.
 """
 
 from .cg import block_cg, cg_solve, udot, CGResult            # noqa: F401

@@ -3,8 +3,9 @@
 ``cg`` mirrors ``clcg::cg`` (``clcg.h:3-5``, ``clcg.c:111-466``) and the
 PyOpenCL host ``cl.CG`` (``cl.py:44-200``): CSR arrays in, solution out,
 with the reference's column-major multi-RHS packing ``v[i + r*size]``
-(``clcg.c:14-25``).  Internally the matrix is converted once to the best
-TPU container and the whole fixed-iteration loop runs on device.
+(``clcg.c:14-25``).  Internally the matrix is converted once to a device
+container (``tpcg.sparse.to_device_matrix``) and the whole
+fixed-iteration loop runs on device as one XLA program.
 
 Deliberate fixes vs the reference (SURVEY §"Quirks"):
   * real inputs keep their float dtype (``cl.py:61`` wrongly used
@@ -21,137 +22,52 @@ from .cg import block_cg
 from .sparse import to_device_matrix
 
 
-def _routed_planes_op(A_container, A_sci):
-    """Operator override for the planes solve when the container is not
-    pair-splittable: unstructured matrices reached via route_fallback.
-
-    * EllMatrix (complex values, routing not yet built): build the
-      shared-routing Karatsuba planes operator from the scipy matrix.
-    * DeviceRouted (real values routed, complex RHS): wrap as a
-      real-only PairOperator -- two independent real routed SpMVs.
-    Returns None when the container splits normally (DIA/stencil)."""
-    from .sparse import EllMatrix
-    from .ops.route_spmv import DeviceRouted
-
-    if isinstance(A_container, EllMatrix) and A_sci is not None:
-        import jax
-        from .ops.routing import build_routing_spmv
-        from .ops.route_spmv import routed_pair
-        return routed_pair(build_routing_spmv(A_sci),
-                           interpret=jax.devices()[0].platform == "cpu")
-    if isinstance(A_container, DeviceRouted):
-        from .ops.cplx import PairOperator
-        return PairOperator(ar=A_container, ai=None, ars=None,
-                            real_only=True)
-    return None
-
-
-def _resolve_routing(routing, size, is_complex):
-    """Precomputed routing tables -> solve operands.
-
-    ``routing`` is a ``RoutedSpmv`` or a path to tables saved by
-    ``RoutedSpmv.save`` / ``python -m tpcg.cli route`` -- the offline
-    preprocessing workflow.  Bypasses the in-line ``build_routing_spmv``
-    (minutes for ~10M nnz) entirely; the CSR arrays passed alongside are
-    ignored for the operator.  Returns ``(container, Pop)``: a real
-    ``DeviceRouted`` container for real solves, or a ``routed_pair``
-    planes operator for complex ones (routed kernels are float32, so
-    complex routed solves always run in f32 planes).
-    """
-    import os
-    import jax
-    from .ops.routing import RoutedSpmv
-    from .ops.route_spmv import DeviceRouted, routed_pair
-
-    R = (RoutedSpmv.load(os.fspath(routing))
-         if isinstance(routing, (str, os.PathLike)) else routing)
-    if R.n != size:
-        raise ValueError(
-            f"routing tables are for n={R.n}, matrix has n={size}")
-    interp = jax.devices()[0].platform == "cpu"
-    if is_complex or np.iscomplexobj(R.vals):
-        return None, routed_pair(R, interpret=interp)
-    return DeviceRouted(R, interpret=interp), None
-
-
-def _solve_planes(A, B, X0, n_iterations, Pop=None):
-    """Two-plane float solve of a complex system (TPU backends here
-    cannot execute complex64 programs; see tpcg/ops/cplx.py).  complex128
-    inputs degrade to float32 planes unless x64 is enabled.
-    ``Pop`` overrides the operator (e.g. a ``routed_pair`` for
-    unstructured matrices)."""
-    import warnings
+def _solve_planes(A, B, X0, n_iterations):
+    """Complex solve as two float planes (``tpcg.ops.cplx``).  complex128
+    inputs run in float64 planes when x64 is enabled, else float32."""
     import jax
     import jax.numpy as jnp
-    from .ops.cplx import (block_cg_planes_chunked as block_cg_planes,
-                           from_planes, make_pair_operator, to_planes)
-    from .sparse import DiaMatrix
-    from .ops.stream_cg_dia import (dia_stream_cplx_fits,
-                                    stream_cg_dia_cplx_block)
-    from .ops.fused_cg_dia import (fused_cg_dia_cplx_block,
-                                   fused_dia_cplx_fits)
+    from .ops.cplx import (block_cg_planes_chunked, from_planes,
+                           make_pair_operator, to_planes)
 
     dtype = np.asarray(B).dtype
-    fdt = jnp.float32 if dtype == np.complex64 else jnp.float64
-    if dtype == np.complex128 and not jax.config.jax_enable_x64:
-        warnings.warn(
-            "complex128 solve on a non-CPU backend runs in float32 planes "
-            "(enable jax x64 for double precision)", stacklevel=3)
-    if (Pop is None and fdt == jnp.float32
-            and isinstance(A, DiaMatrix)
-            and np.issubdtype(np.dtype(A.data.dtype), np.complexfloating)
-            and jax.default_backend() == "tpu"):
-        # complex banded operands route to the DIA kernels (the
-        # mhd1280b class, report Table I): whole-solve fused tier when
-        # everything is VMEM-resident (grid-step overhead dominates at
-        # small n), streaming value pipeline above that
-        interp = jax.devices()[0].platform == "cpu"
-        if fused_dia_cplx_fits(A):
-            X, history = fused_cg_dia_cplx_block(
-                A, B, X0, n_iterations=n_iterations, interpret=interp)
-            return X.astype(dtype), np.asarray(history)
-        if dia_stream_cplx_fits(A):
-            X, history = stream_cg_dia_cplx_block(
-                A, B, X0, n_iterations=n_iterations, interpret=interp)
-            return X.astype(dtype), np.asarray(history)
-    if Pop is None:
-        Pop = make_pair_operator(A, dtype=fdt)
-    res = block_cg_planes(Pop, to_planes(B, fdt),
-                          to_planes(X0, fdt) if X0 is not None else None,
-                          n_iterations=n_iterations)
+    fdt = (jnp.float64 if dtype == np.complex128
+           and jax.config.jax_enable_x64 else jnp.float32)
+    Pop = make_pair_operator(A, dtype=fdt)
+    res = block_cg_planes_chunked(
+        Pop, to_planes(B, fdt),
+        to_planes(X0, fdt) if X0 is not None else None,
+        n_iterations=n_iterations)
     X = from_planes(np.asarray(res.x)).astype(dtype)
     return X, np.asarray(res.residual_history)
 
 
-def _solve_real(A, B, X0, n_iterations, on_tpu):
-    """Real solve dispatch.  Banded ``DiaMatrix`` operands on TPU route
-    to the streaming DIA kernel (state VMEM-resident, value diagonals
-    streamed -- ~3.3x the XLA shift-multiply on the reference's
-    m_t1/parabolic_fem classes, benchmarks/GENERAL_SPARSE.md) when the
-    fit rule passes; everything else runs the XLA ``block_cg`` host.
-    Returns ``(X, history)`` as host arrays."""
-    import jax
+def _solve_native(A, B, X0, n_iterations):
+    """Real or native-complex solve on the matrix's own dtype."""
     import jax.numpy as jnp
-    from .sparse import DiaMatrix
-    from .ops.stream_cg_dia import dia_stream_fits, stream_cg_dia_block
-
-    if (on_tpu and isinstance(A, DiaMatrix)
-            and np.dtype(A.data.dtype) == np.float32
-            and np.asarray(B).dtype == np.float32
-            and dia_stream_fits(A)):
-        X, history = stream_cg_dia_block(
-            A, B, X0, n_iterations=n_iterations,
-            interpret=jax.devices()[0].platform == "cpu")
-        return np.asarray(X), np.asarray(history)
     result = block_cg(A, jnp.asarray(B),
                       jnp.asarray(X0) if X0 is not None else None,
                       n_iterations=n_iterations)
     return np.asarray(result.x), np.asarray(result.residual_history)
 
 
+def _solve(A, B, X0, n_iterations, is_complex, planes):
+    if is_complex and planes:
+        return _solve_planes(A, B, X0, n_iterations)
+    return _solve_native(A, B, X0, n_iterations)
+
+
+def _unpermute(X, perm):
+    if perm is None:
+        return X
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return X[inv]
+
+
 def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
        n_rhs: int = 1, n_iterations: int = 10, is_complex=None,
-       record_history: bool = False, routing=None):
+       record_history: bool = False, planes: bool = False):
     """Solve ``A X = B`` with ``n_iterations`` of block CG.
 
     a_values/a_pointers/a_cols : CSR arrays (len nnz / size+1 / nnz).
@@ -159,16 +75,12 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
            (``v[i + r*size]``); ``x`` is the initial guess (zeros if None).
     is_complex : inferred from dtypes when None (the C API's explicit flag,
            ``clcg.h:5``, is accepted for parity).
-    routing : precomputed routing-network tables for unstructured
-           matrices -- a ``RoutedSpmv`` or a path to an ``.npz`` saved by
-           ``python -m tpcg.cli route`` -- used instead of rebuilding the
-           network in-line (minutes for ~10M nnz).
+    planes : run a complex system as float real/imag planes
+           (``tpcg.ops.cplx``) instead of native complex.
     Returns the solution with the same packing (and the per-RHS residual
     history when ``record_history``).
     """
-    import jax.numpy as jnp
     import scipy.sparse as sp
-    from jax import default_backend as jax_default_backend
 
     a_values = np.asarray(a_values)
     b = np.asarray(b)
@@ -178,75 +90,37 @@ def cg(size: int, non_zeros: int, a_values, b, a_pointers, a_cols, x=None,
     if a_values.dtype in (np.complex128, np.float64):
         dtype = np.complex128 if is_complex else np.float64
 
-    on_tpu = jax_default_backend() != "cpu"
-    Pop = None
-    perm = None
-    if routing is not None:
-        A, Pop = _resolve_routing(routing, size, is_complex)
-        if is_complex:
-            dtype = np.complex64     # routed kernels are f32 planes
-    else:
-        A_sci = sp.csr_matrix((a_values.astype(dtype),
-                               np.asarray(a_cols),
-                               np.asarray(a_pointers)),
-                              shape=(size, size))
-        # banded (possibly after RCM reordering) -> gather-free DIA
-        # layout; residual histories are permutation-invariant, so
-        # reordering is transparent at this boundary.  On TPU, genuinely
-        # unstructured real matrices fall through to the routing-network
-        # SpMV instead of the slow ELL gather (complex ones are routed
-        # below via routed_pair).
-        A, perm = to_device_matrix(A_sci, reorder=True,
-                                   route_fallback=on_tpu
-                                   and not is_complex)
+    A_sci = sp.csr_matrix((a_values.astype(dtype), np.asarray(a_cols),
+                           np.asarray(a_pointers)), shape=(size, size))
+    # banded (possibly after RCM reordering) -> gather-free DIA layout,
+    # else the ELL gather layout; residual histories are
+    # permutation-invariant, so reordering is transparent here.
+    A, perm = to_device_matrix(A_sci, reorder=True)
     B = np.asarray(b, dtype=dtype).reshape(n_rhs, size).T      # (n, nrhs)
     X0 = np.asarray(x, dtype=dtype).reshape(n_rhs, size).T \
         if x is not None else None
     if perm is not None:
         B = B[perm]
         X0 = X0[perm] if X0 is not None else None
-    if is_complex and (on_tpu or Pop is not None):
-        if Pop is None:
-            Pop = _routed_planes_op(A, A_sci)
-        X, history = _solve_planes(A, B, X0, n_iterations, Pop=Pop)
-    else:
-        X, history = _solve_real(A, B, X0, n_iterations, on_tpu)
-    if perm is not None:
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(size)
-        X = X[inv]
-    out = X.T.reshape(-1)                                      # column-major
+    X, history = _solve(A, B, X0, n_iterations, is_complex, planes)
+    out = _unpermute(X, perm).T.reshape(-1)                    # column-major
     if record_history:
         return out, history
     return out
 
 
 def cg_matrix(A, b, x=None, n_rhs=None, n_iterations=10,
-              record_history=False, routing=None):
+              record_history=False, planes=False):
     """Convenience wrapper: scipy matrix / device container in, same
-    column-major packing semantics (and TPU complex-planes fallback) as
-    ``cg``.  ``routing`` accepts the same precomputed routing tables."""
+    column-major packing semantics (and ``planes`` option) as ``cg``."""
     import scipy.sparse as sp
-    import jax.numpy as jnp
-    from jax import default_backend
 
     perm = None
-    A_sci = None
-    Pop = None
-    on_tpu = default_backend() != "cpu"
     n = A.shape[0]
-    if routing is not None:
-        is_cplx_in = (np.iscomplexobj(np.asarray(b))
-                      or np.issubdtype(np.dtype(A.dtype),
-                                       np.complexfloating))
-        A, Pop = _resolve_routing(routing, n, is_cplx_in)
-    elif sp.issparse(A):
-        # same RCM / routing policy as ``cg`` (a shuffled banded matrix
-        # must land on the gather-free DIA path through every entry
-        # point; unstructured ones on the routing network, not ELL)
-        A_sci = sp.csr_matrix(A)
-        A, perm = to_device_matrix(A_sci, reorder=True,
-                                   route_fallback=on_tpu)
+    if sp.issparse(A):
+        # same RCM policy as ``cg``: a shuffled banded matrix lands on the
+        # gather-free DIA path through every entry point
+        A, perm = to_device_matrix(sp.csr_matrix(A), reorder=True)
     b = np.asarray(b)
     n_rhs = n_rhs or (b.size // n)
     B = b.reshape(n_rhs, n).T
@@ -255,27 +129,13 @@ def cg_matrix(A, b, x=None, n_rhs=None, n_iterations=10,
         B = B[perm]
         X0 = X0[perm] if X0 is not None else None
     # a complex matrix with a real RHS still needs the complex solve
-    # (a routed complex operand has A None + Pop set)
-    is_complex = (np.iscomplexobj(B) or A is None
+    is_complex = (np.iscomplexobj(B)
                   or np.issubdtype(np.dtype(A.dtype), np.complexfloating))
     if is_complex and not np.iscomplexobj(B):
-        B = B.astype(np.complex64 if A is None else
-                     np.result_type(B.dtype, A.dtype))
+        B = B.astype(np.result_type(B.dtype, A.dtype))
         X0 = X0.astype(B.dtype) if X0 is not None else None
-    if is_complex and (on_tpu or Pop is not None):
-        if Pop is None:
-            Pop = _routed_planes_op(A, A_sci)
-        if routing is not None:
-            B = B.astype(np.complex64)   # routed kernels are f32 planes
-            X0 = X0.astype(np.complex64) if X0 is not None else None
-        X, history = _solve_planes(A, B, X0, n_iterations, Pop=Pop)
-    else:
-        X, history = _solve_real(A, B, X0, n_iterations, on_tpu)
-    if perm is not None:
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(n)
-        X = X[inv]
-    out = np.asarray(X).T.reshape(-1)
+    X, history = _solve(A, B, X0, n_iterations, is_complex, planes)
+    out = np.asarray(_unpermute(X, perm)).T.reshape(-1)
     if record_history:
         return out, history
     return out

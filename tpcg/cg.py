@@ -1,10 +1,10 @@
-"""Block conjugate-gradient solver -- the TPU-native core.
+"""Block conjugate-gradient solver -- the device core.
 
 This replaces the whole L1+L2 of the reference (OpenCL kernels
 ``spmv/vdot/axpy/aypx/sub`` + the C/PyOpenCL hosts ``clcg.c:111-466`` /
-``cl.py:44-200``).  On TPU none of the five kernels exist separately: the
-iteration body below is traced once and XLA fuses the vector updates and the
-dot-product reductions into the SpMV's HBM pass.  Where the reference pays
+``cl.py:44-200``).  None of the five kernels exist separately: the
+iteration body below is traced once and XLA fuses the vector updates and
+the dot-product reductions around the SpMV.  Where the reference pays
 4 host<->device round-trips per iteration for the alpha/beta scalar math
 (``clcg.c:309-416``, called out as the main bottleneck in report SVI), here
 the entire fixed-iteration loop is a single on-device ``lax.scan`` -- zero
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -42,6 +43,22 @@ def _as_matvec(A) -> Callable[[jnp.ndarray], jnp.ndarray]:
     return A.matvec
 
 
+def _freeze_floor(abs_delta0):
+    """``(floor, tiny)`` of the freeze guard shared by the CG recurrences.
+
+    A column freezes (alpha = beta = 0, the iterate kept) once
+    ``|<r,r>| <= floor``, i.e. its residual is down to eps^2 of its start
+    (or ``<r0,r0>`` is 0), or once ``|<d,q>|`` is below the smallest
+    normal number.  Past that point the iterate no longer changes above
+    its own rounding, and running on only amplifies rounding noise: in
+    float32, COCG run thousands of iterations past convergence (the
+    reference's fixed-iteration protocol) breaks down on a noise pivot
+    and turns to NaN.  Deliberate robustness fix over ``clcg.c:317``.
+    """
+    fi = jnp.finfo(abs_delta0.dtype)
+    return jnp.maximum(fi.tiny, fi.eps ** 4 * abs_delta0), fi.tiny
+
+
 def block_cg(A, b: jnp.ndarray, x0: Optional[jnp.ndarray] = None,
              n_iterations: int = 10, dot: Callable = udot) -> CGResult:
     """Fixed-iteration block CG: ``n_rhs`` independent CG recurrences sharing
@@ -65,16 +82,13 @@ def block_cg(A, b: jnp.ndarray, x0: Optional[jnp.ndarray] = None,
     d0 = r0
     delta0 = dot(r0, r0)
 
+    floor, tiny = _freeze_floor(jnp.abs(delta0))
+
     def step(carry, _):
         x, r, d, delta = carry
         q = matvec(d)
         dq = dot(d, q)
-        # Guard exact convergence: once <r,r> (or <d,q>, after d underflows)
-        # hits exactly 0 the iterate is converged and alpha/beta become 0/0;
-        # freeze it instead of producing NaNs (deliberate robustness fix
-        # over clcg.c:317 -- reachable only when running fixed iterations
-        # past convergence).
-        done = (delta == 0) | (dq == 0)
+        done = (jnp.abs(delta) <= floor) | (jnp.abs(dq) < tiny)
         alpha = jnp.where(done, 0, delta / jnp.where(done, 1, dq))
         x = x + alpha * d
         r = r - alpha * q
@@ -90,9 +104,43 @@ def block_cg(A, b: jnp.ndarray, x0: Optional[jnp.ndarray] = None,
     return CGResult(x=x, residual_history=history, delta=delta)
 
 
+def solve_in_chunks(solve: Callable, b: jnp.ndarray,
+                    x0: Optional[jnp.ndarray], chunk: int):
+    """Run ``solve(b_chunk, x0_chunk)`` over RHS chunks of the last axis
+    of ``b`` inside one program (``lax.map``) and stitch the outputs.
+
+    Every output leaf must carry the RHS on its last axis (``CGResult`` /
+    ``CGPlanesResult`` do).  Per-RHS recurrences are independent
+    (``clcg.c:317-333``), so chunking bounds the working set of large
+    batches without changing any result.  Chunks are balanced: the batch
+    splits into ``ceil(nrhs/chunk)`` equal chunks, zero-padded; a zero RHS
+    freezes at ``delta0 == 0`` and is cut off again.
+    """
+    nrhs = b.shape[-1]
+    if x0 is None:
+        x0 = jnp.zeros_like(b)
+    if nrhs <= chunk:
+        return solve(b, x0)
+    nc = -(-nrhs // chunk)
+    chunk = -(-nrhs // nc)
+    pad = nc * chunk - nrhs
+    if pad:
+        widths = [(0, 0)] * (b.ndim - 1) + [(0, pad)]
+        b = jnp.pad(b, widths)
+        x0 = jnp.pad(x0, widths)
+
+    def split(v):
+        return jnp.moveaxis(v.reshape(v.shape[:-1] + (nc, chunk)), -2, 0)
+
+    outs = lax.map(lambda bx: solve(*bx), (split(b), split(x0)))
+    return jax.tree_util.tree_map(
+        lambda o: jnp.moveaxis(o, 0, -2).reshape(
+            o.shape[1:-1] + (nc * chunk,))[..., :nrhs], outs)
+
+
 def cg_solve(A, b, x0=None, tol=1e-5, maxit=1000, M=None, dot: Callable = udot):
     """CG with preconditioning and on-device early exit
-    (``lax.while_loop``) -- the TPU analogue of ``PCG``
+    (``lax.while_loop``) -- the device analogue of ``PCG``
     (``helmFE_var.py:546-586``) and the big scripts' NumPy ``CG``
     (``p_h-PY_C-CL-multi-GPU.py:1333-1364``).
 

@@ -1,6 +1,6 @@
 // Native Matrix Market reader for tpcg.
 //
-// TPU-native replacement for the reference's BeBOP Sparse Matrix Converter
+// Native replacement for the reference's BeBOP Sparse Matrix Converter
 // dependency (main.c:8-33): parses coordinate-format Matrix Market files
 // (real / complex / integer / pattern, general / symmetric / hermitian /
 // skew-symmetric), expands symmetric storage, and emits sorted CSR.

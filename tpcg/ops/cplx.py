@@ -1,18 +1,15 @@
-"""Complex arithmetic as explicit float32 planes -- the TPU compute path.
+"""Complex arithmetic as explicit real planes.
 
 The reference carries complex values as OpenCL ``float2`` with hand-rolled
-``cmul``/``cadd`` helpers (``kernel/complex/cmplx.h:4-25``).  On TPU we do
-the analogous thing deliberately: complex arrays are stored as a leading
-size-2 axis of real planes ``p[0] = re, p[1] = im`` (leading, so the minor
-(8, 128) tiling of the data dims is untouched), and every complex op is
-spelled out in real arithmetic.  Two reasons:
-
- 1. The serving TPU backend in this environment does not execute complex64
-    programs at all; float32 planes are the only path.
- 2. Control: the complex SpMV becomes three real SpMVs via Karatsuba
-    (with a cached ``Ar + Ai`` operator) instead of XLA's generic 4-mult
-    lowering -- 25% fewer FLOPs *and* one fewer coefficient stream from
-    HBM, which matters because CG is bandwidth-bound.
+``cmul``/``cadd`` helpers (``kernel/complex/cmplx.h:4-25``).  This module
+does the analogous thing: complex arrays are stored as a leading size-2
+axis of real planes ``p[0] = re, p[1] = im``, and every complex op is
+spelled out in real arithmetic.  The complex SpMV becomes three real SpMVs
+via Karatsuba (with a cached ``Ar + Ai`` operator) instead of the generic
+4-multiply lowering -- 25% fewer FLOPs, at the price of reading three
+real coefficient planes where native complex reads two complex ones.
+Native complex is the default of every entry point; planes run only when
+a caller asks for them (native was faster on an H100, ``PERF.md``).
 
 ``PairOperator`` wraps any real container from ``tpcg.sparse`` (Stencil2D /
 DiaMatrix / EllMatrix) pair; ``block_cg_planes`` is the fixed-iteration
@@ -30,6 +27,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+from ..cg import _freeze_floor
 
 
 def to_planes(x, dtype=jnp.float32) -> jnp.ndarray:
@@ -53,8 +52,9 @@ def cmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 def cdiv(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Complex division with Smith-style scaling: the naive |b|^2
-    denominator underflows (TPU flushes subnormals) once residuals shrink
-    past ~1e-19 in f32, which would NaN a long fixed-iteration CG run."""
+    denominator underflows (to a subnormal, or to zero where subnormals
+    are flushed) once residuals shrink past ~1e-19 in f32, which would
+    NaN a long fixed-iteration CG run."""
     m = jnp.maximum(jnp.abs(b[0]), jnp.abs(b[1]))
     ms = jnp.where(m == 0, 1.0, m)
     b0, b1 = b[0] / ms, b[1] / ms
@@ -161,15 +161,17 @@ def block_cg_planes(A, b: jnp.ndarray, x0: Optional[jnp.ndarray] = None,
     d0 = r0
     delta0 = udot_planes(r0, r0, axis=0)          # (2, nrhs)
 
+    def mag(z):                     # |z| to within sqrt(2), no underflow
+        return jnp.maximum(jnp.abs(z[0]), jnp.abs(z[1]))
+
+    floor, tiny = _freeze_floor(mag(delta0))
+
     def step(carry, _):
         x, r, d, delta = carry
         q = matvec(d)
         dq = udot_planes(d, q, axis=0)
-        # freeze once converged past machine precision: <r,r> == 0, or
-        # <d,q> == 0 (d underflowed to zero) -- running a fixed iteration
-        # count far past convergence must not NaN the solution.
-        done = ((delta[0] == 0) & (delta[1] == 0)) \
-            | ((dq[0] == 0) & (dq[1] == 0))
+        # the freeze guard of tpcg.cg.block_cg (see _freeze_floor)
+        done = (mag(delta) <= floor) | (mag(dq) < tiny)
         safe_dq = jnp.where(done[None], jnp.ones_like(dq), dq)
         alpha = jnp.where(done[None], 0.0, cdiv(delta, safe_dq))
         x = x + cmul(alpha[:, None, :], d)
@@ -192,49 +194,12 @@ def block_cg_planes_chunked(A, b: jnp.ndarray,
                             x0: Optional[jnp.ndarray] = None,
                             n_iterations: int = 10,
                             chunk: int = 32) -> CGPlanesResult:
-    """Arbitrary-batch :func:`block_cg_planes`: RHS chunks solved
-    back-to-back inside one program.
-
-    Beyond ~32 simultaneous RHS the single-program working set spills
-    VMEM on v5e and throughput collapses (benchmarks/BLOCK_RHS.md:
-    1305 GFLOPS at b=32 vs 466 at b=64); per-RHS recurrences are
-    independent (``clcg.c:317-333``), so chunking restores flat
-    per-RHS throughput at any batch.
-
-    Chunks are BALANCED: the batch splits into ``ceil(nrhs/chunk)``
-    equal chunks of ``ceil(nrhs/nc)`` (scan needs uniform shapes), so
-    b=48 runs as 24+24 instead of a greedy 32+16-padded-to-32 -- the
-    greedy split cost b=48 a full extra-16-RHS of work and produced
-    the BLOCK_RHS.md dip (1091 GFLOPS vs 1328 at b=32).
-    """
-    if b.ndim == 2 or b.shape[-1] <= chunk:
+    """Arbitrary-batch :func:`block_cg_planes`: balanced RHS chunks of at
+    most ``chunk`` solved back-to-back inside one program
+    (``tpcg.cg.solve_in_chunks``)."""
+    from ..cg import solve_in_chunks
+    if b.ndim == 2:
         return block_cg_planes(A, b, x0, n_iterations)
-    nrhs = b.shape[-1]
-    nc_bal = -(-nrhs // chunk)
-    chunk = -(-nrhs // nc_bal)
-    pad = (-nrhs) % chunk
-    if pad:
-        zb = jnp.zeros(b.shape[:-1] + (pad,), b.dtype)
-        b = jnp.concatenate([b, zb], axis=-1)
-        if x0 is not None:
-            x0 = jnp.concatenate([x0, zb], axis=-1)
-    nc = b.shape[-1] // chunk
-    bs = jnp.moveaxis(b.reshape(b.shape[:-1] + (nc, chunk)), -2, 0)
-    if x0 is None:
-        x0s = jnp.zeros_like(bs)
-    else:
-        x0s = jnp.moveaxis(x0.reshape(x0.shape[:-1] + (nc, chunk)),
-                           -2, 0)
-
-    def body(carry, bx):
-        bc_, x0c = bx
-        res = block_cg_planes(A, bc_, x0c, n_iterations)
-        return carry, (res.x, res.residual_history, res.delta)
-
-    _, (xs, hists, deltas) = lax.scan(body, 0, (bs, x0s))
-    x = jnp.concatenate([xs[c] for c in range(nc)], axis=-1)[..., :nrhs]
-    hist = jnp.concatenate([hists[c] for c in range(nc)],
-                           axis=-1)[..., :nrhs]
-    delta = jnp.concatenate([deltas[c] for c in range(nc)],
-                            axis=-1)[..., :nrhs]
-    return CGPlanesResult(x=x, residual_history=hist, delta=delta)
+    return solve_in_chunks(
+        lambda bb, xx: block_cg_planes(A, bb, xx, n_iterations), b, x0,
+        chunk)

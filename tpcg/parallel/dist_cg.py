@@ -6,10 +6,10 @@ global matrix (``Decomposition.ax_op`` -- local stencil + ring overwrite,
 collective-permutes under sharding) and the COCG dot products reduce over
 *unique* dofs only, exactly like the reference's distributed ``norm``
 (``p_h-PY_C-CL-multi-GPU.py:2108-2121``) -- under ``jit`` with a sharded
-mesh these become ``psum`` over ICI.
+mesh these become ``psum`` across devices.
 
-State is (M, M, S, S) subdomain fields (complex on CPU, (2, M, M, S, S)
-float planes on TPU); overlap copies stay consistent throughout because
+State is (M, M, S, S) complex subdomain fields (or (2, M, M, S, S)
+float planes); overlap copies stay consistent throughout because
 both the matvec and the updates are replicated on overlaps (the input b
 must be overlap-consistent, e.g. via ``Decomposition.crop_grid``).
 """
@@ -74,7 +74,7 @@ def distributed_cg_planes(decomp: Decomposition, coef3: jnp.ndarray,
                           offsets, b: jnp.ndarray,
                           x0: Optional[jnp.ndarray] = None,
                           n_iterations: int = 10):
-    """Two-plane float32 variant for the TPU (b: (2, M, M, S, S))."""
+    """Two-plane float variant (b: (2, M, M, S, S))."""
     from ..ops.cplx import cabs, cdiv, cmul
 
     u = jnp.asarray(decomp._unique, b.dtype)

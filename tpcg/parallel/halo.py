@@ -1,6 +1,6 @@
 """Overlap (halo) exchange and the distributed matvec.
 
-This is the TPU-native replacement for the reference's MPI layer:
+This is the replacement for the reference's MPI layer:
 
 * ``ol_update``  ==  ``OL_update`` (``p_h-PY_C-CL-multi-GPU.py:2183-2497``):
   partition-of-unity overlap-add across up to 8 neighbours, with optional
@@ -18,7 +18,7 @@ is a *static shift of the subdomain grid*: state lives in an
 col), neighbour access is a zero-padded shift along the first two axes, and
 direction/boundary bookkeeping is precomputed numpy masks.  Under ``jit``
 with the leading axis sharded over a mesh, XLA lowers the shifts to
-``collective-permute`` over ICI and the reductions to ``psum`` -- and
+``collective-permute`` between devices and the reductions to ``psum`` -- and
 schedules them to overlap with the local stencil compute, which is the
 reference's hand-coded comm/compute overlap (``Ax_op`` computing ``A_own``
 while messages fly) for free.
@@ -140,6 +140,11 @@ class Decomposition:
             self.part.unique_mask.reshape(M, M, S, S))
 
     # ------------------------------------------------------------------
+    def unique_weights(self) -> np.ndarray:
+        """Host (M, M, S, S) float64 unique-dof mask: each global dof
+        counted once by the global reductions."""
+        return np.asarray(self._unique, dtype=np.float64)
+
     @property
     def grid_shape(self) -> Tuple[int, int, int, int]:
         M, S = self.part.M, self.part.sdsz
@@ -275,10 +280,9 @@ class Decomposition:
         y = y.at[..., 0, S - 1].set(y[..., 0, S - 1] * (1 - m) + se * m)
         return y
 
-    # ---- two-plane (float32) variants for the TPU compute path --------
-    # (this environment's TPU cannot execute complex64 programs; see
-    #  tpcg/ops/cplx.py.  The exchange and overwrite are R-linear with
-    #  real masks, so plane-wise application is exactly the complex op.)
+    # ---- two-plane variants (complex as float planes, tpcg/ops/cplx.py)
+    # (the exchange and overwrite are R-linear with real masks, so
+    #  plane-wise application is exactly the complex op.)
 
     def ol_update_planes(self, xp: jnp.ndarray, restricted: bool = True,
                          averaging: bool = True) -> jnp.ndarray:

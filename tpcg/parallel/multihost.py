@@ -8,8 +8,8 @@ JAX analogue is multi-controller SPMD: one process per host, each
 initialised through :func:`jax.distributed.initialize`, after which
 ``jax.devices()`` spans the whole cluster and a single
 :class:`~jax.sharding.Mesh` over it makes the existing ``hsolver(...,
-mesh=)`` path run with inter-host collectives on DCN and intra-host on
-ICI.  No solver code changes: the sharded arrays are built with
+mesh=)`` path run with its collectives between all devices of the job.
+No solver code changes: the sharded arrays are built with
 ``jax.device_put`` against a ``NamedSharding`` over the global mesh,
 which transfers only each process's addressable shards.
 
@@ -31,8 +31,7 @@ Verified end-to-end by ``tests/test_multihost.py::
 test_two_process_distributed_solve``: two real jax.distributed
 processes on localhost (CPU devices, collectives over gloo) run the
 mesh-sharded solve to convergence and produce the identical replicated
-solution; multi-HOST differs only in the transport (DCN instead of
-loopback).
+solution; multi-host runs differ only in the transport.
 """
 from __future__ import annotations
 
@@ -49,8 +48,8 @@ def initialize_from_env(coordinator_address: Optional[str] = None,
 
     Reads ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``
     (the conventional jax.distributed env triple) when arguments are not
-    given.  Managed clusters (SLURM, TPU pods with the cloud metadata
-    service) need none of them -- ``jax.distributed.initialize()``
+    given.  Managed clusters that JAX can auto-detect (SLURM, for one)
+    need none of them -- ``jax.distributed.initialize()``
     auto-detects -- so when nothing is configured and auto-detection is
     unavailable we treat the job as single-process and return False.
 
@@ -87,10 +86,13 @@ def global_mesh(axis: str = "sd",
 
     The leading subdomain-grid axis is the only sharded axis the solver
     uses (``hsolver(mesh=)`` shards the (M, M, S, S) state on axis 0),
-    so a 1-D mesh is the general case; devices keep their default order,
-    which places same-host devices adjacently -- W/E subdomain
-    neighbours exchange over ICI, only the host-boundary rows cross DCN
-    (the layout rule SURVEY section 5 prescribes).
+    so the mesh is 1-D and follows the algorithm alone: each device
+    holds a contiguous block of subdomain rows and exchanges halos with
+    the devices holding the rows above and below.  Within one host the
+    GPUs are joined all to all, so no device order is better than
+    another; devices keep JAX's default order, which keeps each host's
+    devices together so that only the rows at host boundaries cross
+    the slower inter-host network.
 
     ``m_subd``: size of the subdomain axis the solver will shard.  The
     mesh is capped to the largest device count that divides it (the same
@@ -102,8 +104,7 @@ def global_mesh(axis: str = "sd",
     process blocked outside the collectives), so the cap must stay a
     multiple of the process count and the kept devices are taken
     evenly from each process -- nd/P per process, in process order,
-    which preserves same-host ICI adjacency for the W/E neighbour
-    exchanges.  Raises when ``m_subd`` admits no such mesh size
+    which keeps each process's devices adjacent in the mesh.  Raises when ``m_subd`` admits no such mesh size
     (relaunch with a process count that divides ``m_subd``).
     """
     import numpy as np

@@ -13,7 +13,7 @@ Equal-size mode (``OL >= 0``): the global grid is pre-expanded by ``2*OL``
 ``M x M`` subdomains are identical ``(short_w + 2*OL + 1)``-point squares --
 the property that lets all subdomain solves share one matrix and batch into
 a single multi-RHS CG (the reference's ``UseCG == 2`` trick, which maps
-perfectly onto a TPU batch dimension).
+perfectly onto a device batch dimension).
 
 The reference's unique-region tables have two quirks we reproduce exactly
 (they shape every ``norm``/``wdot`` and hence residual histories):
@@ -27,7 +27,7 @@ instead.
 Subdomain -> device placement differs deliberately: the reference
 round-robins subdomains over MPI ranks (``p % nprocs``,
 ``p_h-PY_C-CL-multi-GPU.py:3371``); we shard the stacked subdomain axis in
-contiguous blocks, which keeps W/E neighbours on-device and rides ICI for
+contiguous blocks, which keeps W/E neighbours on-device and crosses devices for
 N/S -- a placement detail with identical semantics.
 """
 from __future__ import annotations
@@ -149,7 +149,7 @@ def make_varsize_partition(M: int, N: int, OL: int):
 
     Returns a list of per-subdomain dicts (row0, col0, nv, nh, urow, ucol).
     Used by the (loop-based) variable-size solver path and for parity tests;
-    the batched TPU path requires equal sizes.
+    the batched device path requires equal sizes.
     """
     n = N - 1
     sdw = np.full(M, n // M, dtype=np.int64)

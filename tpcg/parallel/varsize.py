@@ -8,7 +8,7 @@ path is implemented host-side over per-subdomain arrays (like the
 reference's per-rank numpy lists) and exposed as flat-vector callables so
 the same ``fgmres`` driver runs on top.  It exists for behavioural parity
 and as a cross-validation oracle; the equal-size path
-(``tpcg/parallel/halo.py``) is the TPU production path.
+(``tpcg/parallel/halo.py``) is the device production path.
 """
 from __future__ import annotations
 

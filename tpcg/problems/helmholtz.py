@@ -33,7 +33,7 @@ of the reference's per-node case analysis (corners / edges / interior,
 fields -- verified entry-for-entry in ``tests/test_problems.py``.
 
 The natural output is a ``Stencil2D`` (7-point: E,W,N,S,NE,SW,diag), which
-is also the fastest TPU matvec; ``.to_dia()`` / ``.to_scipy()`` give the
+is also the cheapest matvec (pure 2-D shifts); ``.to_dia()`` / ``.to_scipy()`` give the
 flattened forms.
 """
 from __future__ import annotations
@@ -154,7 +154,7 @@ def assemble_helmholtz_fe(h: float, mass_sq: np.ndarray, bnd_sq: np.ndarray,
 
     coef = np.stack([diag, east, west, north, south, ne, sw])
     # keep coefficients host-side: device upload happens on first use,
-    # and the TPU pair path (tpcg.ops.cplx) splits planes before upload
+    # and the planes path (tpcg.ops.cplx) splits planes before upload
     return Stencil2D(OFFSETS, coef.astype(dtype), (nv, nh))
 
 

@@ -12,7 +12,9 @@ oracles, with the same numerics:
   (``kernel/complex/vdot.cl:15`` uses ``cmul`` without conjugation).
   Using the Hermitian product instead changes every residual history.
 * ``cg`` runs a **fixed** number of iterations with no convergence test,
-  like the device solver (``clcg.c:297``).
+  like the device solver (``clcg.c:297``); a column that converges past
+  the number range freezes, as on the device, instead of dividing
+  underflowed values.
 * ``cg_early_exit`` is the big-script variant that stops on
   ``sqrt(|dot(r, r)|) < tol`` (``p_h-PY_C-CL-multi-GPU.py:1358-1362``).
 """
@@ -48,14 +50,20 @@ def cg(A, b, x=None, n_iterations=10, record_history=False):
     d = r.copy()
     delta = udot(r, r)
     history = [np.sqrt(np.abs(delta))]
+    tiny = np.finfo(np.abs(delta).dtype).tiny
     for _ in range(n_iterations):
         q = A @ d
-        alpha = delta / udot(d, q)
+        dq = udot(d, q)
+        # a column whose <r,r> or <d,q> fell below the smallest normal
+        # number freezes instead of dividing underflowed values -- the
+        # device solver's guard
+        done = (np.abs(delta) < tiny) | (np.abs(dq) < tiny)
+        alpha = np.where(done, 0, delta / np.where(done, 1, dq))
         x = x + alpha * d
         r = r - alpha * q
         delta_old = delta
         delta = udot(r, r)
-        beta = delta / delta_old
+        beta = np.where(done, 0, delta / np.where(done, 1, delta_old))
         d = r + beta * d
         history.append(np.sqrt(np.abs(delta)))
     if record_history:

@@ -1,17 +1,15 @@
-"""Sparse-matrix containers for the TPU compute path.
+"""Sparse-matrix containers for the device compute path.
 
-The reference (``/root/reference``) stores everything as CSR and runs a
+The reference stores everything as CSR and runs a
 "vector-CSR" SpMV kernel (one 32-lane wave per row, ``kernel/real/spmv.cl:5-50``).
-CSR row-gathering is the wrong layout for a TPU: the VPU wants dense 8x128
-tiles and the MXU wants matmuls, while random gathers serialize.  We therefore
-keep CSR only as the *host interchange* format (scipy) and convert once, at
-setup time, into one of three device formats:
+Here CSR is only the *host interchange* format (scipy); it is converted
+once, at setup time, into one of three device formats whose matvec is a
+short chain of ``jax.numpy`` operations that XLA fuses:
 
 ``DiaMatrix``
     Padded-diagonal storage for banded matrices (every FE/FD problem in the
     reference's suite is <=9-diagonal).  SpMV = sum of statically-shifted
-    elementwise multiplies -- zero gathers, fuses into one VPU pass, and is
-    the speed-of-light layout for stencil operators on TPU.
+    elementwise multiplies -- zero gathers, one fused pass.
 
 ``EllMatrix``
     Padded-row (ELLPACK) storage for general sparse matrices (Matrix Market
@@ -21,9 +19,9 @@ setup time, into one of three device formats:
 ``Stencil2D``
     The 2-D grid-stencil operator: coefficient fields over an (Nv, Nh) node
     grid with static (dm, dj) neighbour offsets.  This is the native form our
-    Helmholtz/Poisson assembly produces (see ``tpcg/problems``) and the
-    fastest matvec of all (pure 2-D shifts).  Equivalent to DiaMatrix after
-    flattening but keeps the geometry for the domain-decomposition layer.
+    Helmholtz/Poisson assembly produces (see ``tpcg/problems``): pure 2-D
+    shifts.  Equivalent to DiaMatrix after flattening but keeps the
+    geometry for the domain-decomposition layer.
 
 All containers are JAX pytrees (static metadata, array leaves), so they pass
 through ``jit``/``vmap``/``shard_map`` transparently.
@@ -131,7 +129,7 @@ class DiaMatrix:
         d_idx = np.searchsorted(offs, d)
         np.add.at(data, (d_idx, A.row), A.data)
         # data stays host-side (numpy): device upload happens on first use,
-        # and the TPU complex path must split planes *before* upload
+        # and the complex-planes path splits planes *before* upload
         return DiaMatrix(tuple(int(o) for o in offs), data, n)
 
 
@@ -278,15 +276,13 @@ def _dia_worthwhile(A, prefer_dia_band: int) -> bool:
             and len(offs) <= prefer_dia_band)
 
 
-def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
-                     route_fallback: bool = False):
-    """Pick the best device container for a scipy sparse matrix.
+def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False):
+    """Pick the device container for a scipy sparse matrix.
 
     Banded matrices with a modest number of distinct diagonals become
     ``DiaMatrix`` (dense-diagonal storage is worth it when
     ``ndiag * n`` is within ~4x of ``nnz``): shift-and-multiply SpMV, no
-    gathers -- the fast TPU layout.  Everything else becomes
-    ``EllMatrix`` (gather SpMV; inherently slow on TPU).
+    gathers.  Everything else becomes ``EllMatrix`` (gather SpMV).
 
     ``reorder=True`` additionally tries symmetric reverse-Cuthill-McKee
     reordering to *make* the matrix banded (FE/mesh matrices almost
@@ -295,32 +291,17 @@ def to_device_matrix(A, prefer_dia_band: int = 4096, reorder: bool = False,
     the container represents ``A[perm][:, perm]``, so solve with
     ``b[perm]`` and un-permute the solution.  Dot products and hence CG
     residual histories are permutation-invariant.
-
-    ``route_fallback=True`` (real matrices, implies the ``reorder``
-    return convention): when neither the natural nor the RCM ordering is
-    band-worthy, build the routing-network operand
-    (``tpcg.ops.route_spmv.DeviceRouted``) instead of the slow ELL
-    gather path.  Preprocessing costs minutes for ~10M nnz (one-time,
-    amortized over the fixed-iteration solves this library targets).
     """
     import scipy.sparse as sp
     A = sp.csr_matrix(A)
     if _dia_worthwhile(A, prefer_dia_band):
         M = DiaMatrix.from_scipy(A)
-        return (M, None) if (reorder or route_fallback) else M
-    if reorder or route_fallback:
+        return (M, None) if reorder else M
+    if reorder:
         from scipy.sparse.csgraph import reverse_cuthill_mckee
         perm = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
         Ap = A[perm][:, perm]
         if _dia_worthwhile(Ap, prefer_dia_band):
             return DiaMatrix.from_scipy(Ap), perm
-        if route_fallback and not np.iscomplexobj(A.data):
-            import jax
-            from .ops.routing import build_routing_spmv
-            from .ops.route_spmv import DeviceRouted
-            # pallas on an actual-CPU platform only runs interpreted
-            interp = jax.devices()[0].platform == "cpu"
-            return DeviceRouted(build_routing_spmv(A),
-                                interpret=interp), None
         return EllMatrix.from_scipy(A), None
     return EllMatrix.from_scipy(A)

@@ -28,26 +28,14 @@ class HelmholtzConfig:
     cg_max_it: int = 256             # CGMaxIT (:3607)
     cg_tol: float = 1e-5             # CGtol (:3606) (early-exit modes only)
     eps_prec1: float = -1.0          # ep1; -1 -> epsilon (:3673)
-    prec_kernel: str = "fused"       # subdomain-CG backend for the planes
-    #                                  path: "fused" (whole batched solve
-    #                                  in one Pallas VMEM kernel; measured
-    #                                  faster than the XLA scan at both
-    #                                  reference protocol configs --
-    #                                  4.04 vs 4.70 ms/application at
-    #                                  M=2/W=34, 5.62 vs 5.97 at M=4/W=34,
-    #                                  CGMaxIT=256, chained device timing,
-    #                                  benchmarks/exp_prec_tpu.py) or
-    #                                  "xla" (block_cg_planes scan; always
-    #                                  used under a mesh / non-shared
-    #                                  blocks / complex-dtype paths)
 
     # Krylov (gmres dispatcher, :3294-3338)
     gmres_ver: str = "fgmres"        # GMRES_VER (:3541)
     tol: float = 1e-6                # Tol (:3443)
     restart: int = 600               # restrt (:3504)
     fgmres_chunk: int = 1            # Arnoldi steps fused per device call
-    #                                  (TPU latency optimization; 1 ==
-    #                                  reference behaviour, see fgmres)
+    #                                  (1 == reference behaviour, and the
+    #                                  fastest measured on an H100)
     fgmres_chunk_split: bool = True  # predictive last-chunk splitting
     #                                  (wasted prec applies ~0; costs one
     #                                  extra traced program per solve)
@@ -74,9 +62,8 @@ class HelmholtzConfig:
     guess: int = 1                   # 1 ones, 2 random, else zeros (:3474)
     verbose: int = 10                # (:3585)
     dtype: str = "complex64"         # device dtype (reference: csingle)
-    use_planes: bool = None          # complex-as-f32-planes compute path;
-    #                                  None = auto (on for TPU backends,
-    #                                  which cannot run complex64 here)
+    use_planes: bool = False         # complex as float real/imag planes
+    #                                  instead of native complex
     seed: int = 0                    # for guess == 2
 
     @property
